@@ -1,163 +1,223 @@
-"""Micro-benchmark: traversal kernels head-to-head on the real chip.
+"""Triangle traversal on the GPU: the BVH walk kernel against plain XLA.
 
-Compares the linear culled-chunk kernel (pallas_traverse.closest_hit_chunked,
-VMEM-resident, 32-row chunks) against the sorted kernels
-(sorted_traverse.closest_hit_sorted, resident and streaming) on
-camera-coherent and scrambled (incoherent) waves over a parametric mesh.
+Two comparisons, both on the card, both paths in one process:
 
-Usage: python benchmarks/bench_traverse.py [n_tris]
+  kernel only   ops/bvh_walk.py (at several block sizes) against what XLA
+                makes of the plain version -- bvh/traverse.closest_hit_bvh,
+                with occlusion derived from the closest hit -- on the
+                dragon's full 720x480 camera wave, one bounce wave, and the
+                shadow wave toward its light;
+  end to end    render_image at 720x480 on dragon_standin (200k triangles),
+                doom_standin (96k), env_mesh_demo (6.4k; plain XLA scans it
+                brute force below bvh_threshold) and the 500-sphere stress
+                scene (no triangles: both paths are the same program).
+
+Timings are medians of alternating repetitions (kernel, XLA, XLA, kernel,
+...) after one warm-up call that compiles; compile time is reported apart.
+Prints one line per measurement and writes everything, with the card's
+name and power limit, to chiprun_out/bench_traverse.json.
+
+Usage: python benchmarks/bench_traverse.py [--reps N] [--quick]
 """
 
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
-import numpy as np
-import jax
-import jax.numpy as jnp
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+W, H = 720, 480
 
 
-def make_mesh(T, seed=0):
-    """A bumpy sphere shell with ~T triangles (dense, teapot-like locality)."""
-    rng = np.random.default_rng(seed)
-    n_lat = max(8, int(np.sqrt(T / 2)))
-    n_lon = 2 * n_lat
-    lat = np.linspace(0.05, np.pi - 0.05, n_lat)
-    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
-    LA, LO = np.meshgrid(lat, lon, indexing="ij")
-    r = 1.0 + 0.1 * np.sin(5 * LA) * np.cos(7 * LO)
-    x = r * np.sin(LA) * np.cos(LO)
-    y = r * np.cos(LA)
-    z = r * np.sin(LA) * np.sin(LO)
-    V = np.stack([x, y, z], -1).reshape(-1, 3)
-    idx = np.arange(n_lat * n_lon).reshape(n_lat, n_lon)
-    a = idx[:-1, :]
-    b = idx[1:, :]
-    c = np.roll(idx[:-1, :], -1, axis=1)
-    d = np.roll(idx[1:, :], -1, axis=1)
-    f1 = np.stack([a.ravel(), b.ravel(), c.ravel()], -1)
-    f2 = np.stack([c.ravel(), b.ravel(), d.ravel()], -1)
-    F = np.concatenate([f1, f2])
-    v0, v1, v2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
-    n = np.cross(v1 - v0, v2 - v0)
-    nn = np.linalg.norm(n, axis=1, keepdims=True)
-    ok = nn[:, 0] > 1e-12
-    v0, v1, v2, n = v0[ok], v1[ok], v2[ok], n[ok] / nn[ok]
-    return v0, v1, v2, n
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
-def make_rays(N, seed=1, coherent=True):
-    rng = np.random.default_rng(seed)
-    if coherent:
-        # Camera-like: common origin plane, directions toward the mesh.
-        px = rng.uniform(-1.2, 1.2, N)
-        py = rng.uniform(-1.2, 1.2, N)
-        o = np.stack([px, py, np.full(N, -4.0)], -1)
-        tgt = np.stack([px * 0.8, py * 0.8, np.zeros(N)], -1)
-        d = tgt - o
-        srt = np.lexsort((py // 0.075, px // 0.075))  # tile-ish coherence
-        o, d = o[srt], d[srt]
-    else:
-        o = rng.uniform(-2, 2, (N, 3))
-        d = rng.normal(size=(N, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return o.astype(np.float32), d.astype(np.float32)
-
-
-def timed(fn, reps=5):
-    fn()  # warmup (compile + first fetch)
-    ts = []
-    for _ in range(reps):
-        t0 = time.time()
+def timed_pair(fns, reps):
+    """fns: {name: zero-arg callable that blocks}.  One warm-up each (the
+    compile), then reps rounds alternating the order.  Returns
+    {name: {"compile_s", "median_s", "min_s", "max_s", "runs"}}."""
+    out = {}
+    for name, fn in fns.items():
+        t0 = time.perf_counter()
         fn()
-        ts.append(time.time() - t0)
-    return statistics.median(ts)
+        out[name] = {"compile_s": time.perf_counter() - t0, "runs": []}
+    names = list(fns)
+    for r in range(reps):
+        for name in names if r % 2 == 0 else names[::-1]:
+            t0 = time.perf_counter()
+            fns[name]()
+            out[name]["runs"].append(time.perf_counter() - t0)
+    for rec in out.values():
+        rec.update(median_s=statistics.median(rec["runs"]),
+                   min_s=min(rec["runs"]), max_s=max(rec["runs"]))
+    return out
+
+
+def xla_static(static):
+    """The plain-XLA choice build_scene makes on the CPU."""
+    from paths_tpu.scene.build import BVH_THRESHOLD
+
+    return dataclasses.replace(static, bvh_kernel=False,
+                               use_bvh=static.n_tris > BVH_THRESHOLD)
+
+
+def kernel_only(reps, blocks):
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+
+    from paths_tpu import camera as C
+    from paths_tpu import integrator as I
+    from paths_tpu.bvh.check import _reference_walk
+    from paths_tpu.ops import bvh_walk
+    from paths_tpu.render import gen_camera_rays, tiled_pixel_order
+    from paths_tpu.sampling import hashing as HS
+    from paths_tpu.scene.build import build_scene
+    from paths_tpu.scene.yaml_loader import load_scene_description
+
+    static, scene, cam = build_scene(load_scene_description(
+        os.path.join(REPO, "scenes", "dragon_standin.yml")))
+    cam = C.resize(cam, W, H)
+    pix = tiled_pixel_order(W, H)
+    px = jnp.asarray((pix % W).astype(np.int32))
+    py = jnp.asarray((pix // W).astype(np.int32))
+    pid = jnp.asarray(pix)
+    sid = jnp.zeros(len(pix), jnp.uint32)
+    n = len(pix)
+    o, d, _ = gen_camera_rays(cam, px, py, pid, sid, jnp.uint32(0))
+
+    @jax.jit
+    def next_waves(o, d):
+        u = lambda b, dim: HS.uniform(jnp.uint32(0), pid, sid,
+                                      jnp.uint32(b * HS.DIMS_PER_BOUNCE + dim))
+        hit = I.intersect_full(static, scene, o, d,
+                               jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32))
+        st = I.path_step(static, scene, 0, I.fresh_path_state(o, d), u)
+        excl = jnp.where(st[6] == I.KIND_TRI, st[7], -1)
+        bounce = (jnp.where(st[4][:, None], st[0], 1e30), st[1], excl)
+        # Shadow rays from the camera hits toward the sphere light.
+        light = scene.light_pos[0]
+        p = hit["location"] + hit["normal"] * I.SHADOW_EPS
+        to_l = light - p
+        dist = jnp.linalg.norm(to_l, axis=-1)
+        s_o = jnp.where(hit["found"][:, None], p, 1e30)
+        s_excl = jnp.where(hit["kind"] == I.KIND_TRI, hit["idx"], -1)
+        shadow = (s_o, to_l / dist[:, None], s_excl,
+                  dist - scene.light_radius[0])
+        return bounce, shadow
+
+    (bo, bd, bexcl), (so, sd, sexcl, smax) = next_waves(o, d)
+    big = jnp.full(n, I.BIG)
+    none = jnp.full(n, -1, jnp.int32)
+    tris = (scene.bvh, scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_n)
+
+    def block(x):
+        jax.block_until_ready(x)
+
+    results = {}
+    waves = {"camera": (o, d, none, big), "bounce": (bo, bd, bexcl, big)}
+    for wave, (wo, wd, we, wt) in waves.items():
+        kind = jnp.where(we >= 0, 2, 0)
+        fns = {f"kernel_b{b}": (lambda b=b: block(bvh_walk.closest_hit(
+            scene.walk, wo, wd, we, wt, block=b))) for b in blocks}
+        fns["xla"] = lambda: block(_reference_walk(*tris, wo, wd, kind, we, wt))
+        results[f"closest_{wave}"] = timed_pair(fns, reps)
+    kind = jnp.where(sexcl >= 0, 2, 0)
+
+    @jax.jit
+    def xla_occluded(so, sd, kind, sexcl, smax):
+        t, i = _reference_walk(*tris, so, sd, kind, sexcl, smax)
+        return t < I.BIG
+
+    fns = {f"kernel_b{b}": (lambda b=b: block(bvh_walk.occluded(
+        scene.walk, so, sd, sexcl, none, smax, block=b))) for b in blocks}
+    fns["xla"] = lambda: block(xla_occluded(so, sd, kind, sexcl, smax))
+    results["anyhit_shadow"] = timed_pair(fns, reps)
+    occ_k = np.asarray(bvh_walk.occluded(scene.walk, so, sd, sexcl, none, smax))
+    occ_x = np.asarray(xla_occluded(so, sd, kind, sexcl, smax))
+    results["anyhit_shadow_agree"] = float((occ_k == occ_x).mean())
+    results["live_lanes"] = {
+        "camera": n, "bounce": int((np.abs(np.asarray(bo)).max(1) < 1e29).sum()),
+        "shadow": int((np.abs(np.asarray(so)).max(1) < 1e29).sum())}
+    return results
+
+
+def end_to_end(reps, quick):
+    from paths_tpu import camera as C
+    from paths_tpu.render import render_image
+    from paths_tpu.scene.build import build_scene
+    from paths_tpu.scene.stress import generate_stress_scene
+    from paths_tpu.scene.yaml_loader import load_scene_description
+
+    cells = [("dragon_standin", 4), ("doom_standin", 4), ("env_mesh_demo", 4),
+             ("stress500", 8)]
+    if quick:
+        cells = cells[:1]
+    results = {}
+    for name, spp in cells:
+        if name == "stress500":
+            sd = generate_stress_scene(500, seed=0)
+        else:
+            sd = load_scene_description(os.path.join(REPO, "scenes", f"{name}.yml"))
+        static, scene, cam = build_scene(sd)
+        cam = C.resize(cam, W, H)
+        variants = {"kernel": static, "xla": xla_static(static)}
+        fns = {k: (lambda st=st: render_image(st, scene, cam, W, H, spp=spp))
+               for k, st in variants.items()}
+        rec = timed_pair(fns, reps)
+        for v in rec.values():
+            v["pixel_samples_per_s"] = W * H * spp / v["median_s"]
+        results[f"{name}_{spp}spp"] = rec
+    return results
 
 
 def main():
-    T = int(sys.argv[1]) if len(sys.argv) > 1 else 6000
-    N = 345600
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=4)
+    ap.add_argument("--quick", action="store_true",
+                    help="dragon only, for a first compile-and-check call")
+    ap.add_argument("--blocks", default="32,64,128")
+    args = ap.parse_args()
 
-    from paths_tpu.bvh.build import build_bvh
-    from paths_tpu.ops import pallas_traverse as PT
-    from paths_tpu.ops import sorted_traverse as ST
+    import jax
 
-    v0, v1, v2, n = make_mesh(T)
-    print(f"mesh: {len(v0)} tris, wave: {N} rays")
-    tmin = np.minimum(np.minimum(v0, v1), v2)
-    tmax = np.maximum(np.maximum(v0, v1), v2)
-    flat = build_bvh(tmin, tmax, leaf_size=PT.PACK_LEAF)
-    v0, v1, v2, n = (a[flat.order] for a in (v0, v1, v2, n))
+    from paths_tpu.platform import enable_compile_cache
 
-    ct32, c32 = PT.pack_chunked(flat, v0, v1, v2, n, rows_per_chunk=32)
-    ct8, c8 = PT.pack_chunked(flat, v0, v1, v2, n,
-                              rows_per_chunk=ST.ROWS_PER_CHUNK_SORTED)
-    fits_vmem = PT.vmem_bytes(len(v0), 2 * len(v0)) < PT.VMEM_LIMIT_BYTES
-    print(f"chunks: linear={c32} sorted={c8}; fits VMEM: {fits_vmem}")
-
-    excl = jnp.full(N, -1, jnp.int32)
-    t_init = jnp.full(N, PT.BIG, jnp.float32)
-
-    def hit_sum(t):
-        # Clamped: grazing f32 hits can carry t ~ 1e7 and near-ties resolve
-        # differently across processing orders -- don't let them dominate.
-        return jnp.where(t < 1e38, jnp.minimum(t, 100.0), 0.0).sum()
-
-    # Candidate statistics + precompute-only timing for the sorted path.
-    from jax import lax
-
-    @jax.jit
-    def cull_stats(o_, d_):
-        from paths_tpu.ops.sorted_traverse import _block_cull_sort
-        perm = PT._coherence_perm(o_, d_, *PT._meta_bounds(ct8.chunk_meta))
-        o_s = jnp.take(o_, perm, axis=0)
-        d_s = jnp.take(d_, perm, axis=0)
-        npad = -(-N // PT.BLOCK_N) * PT.BLOCK_N
-        pad = npad - N
-        o_s = jnp.concatenate([o_s, jnp.full((pad, 3), 1e30, o_s.dtype)])
-        d_s = jnp.concatenate([d_s, jnp.ones((pad, 3), d_s.dtype)])
-        t_s = jnp.concatenate([t_init, jnp.zeros(pad, t_init.dtype)])
-        ids, keys = _block_cull_sort(o_s, d_s, t_s, ct8.chunk_meta, c8)
-        cand = (keys < 1e38).sum(axis=1)
-        return cand.mean(), cand.max(), jnp.where(keys < 1e38, keys, 0.0).sum()
-
-    for coh in (True, False):
-        o, d = make_rays(N, coherent=coh)
-        oj, dj = jnp.asarray(o), jnp.asarray(d)
-        tag = "coherent" if coh else "incoherent"
-
-        mean_c, max_c, _ = (float(x) for x in cull_stats(oj, dj))
-        dt_pre = timed(lambda: float(cull_stats(oj, dj)[2]))
-        print(f"  [{tag}] candidates/block: mean={mean_c:.1f} max={max_c:.0f} "
-              f"of {c8}; cull+sort precompute: {dt_pre*1e3:.2f} ms")
-
-        variants = {}
-        if fits_vmem:
-            variants["linear-resident-32"] = jax.jit(
-                lambda o_, d_: hit_sum(PT.closest_hit_chunked(
-                    ct32, c32, o_, d_, excl, t_init)[0])
-            )
-            variants["sorted-resident-8"] = jax.jit(
-                lambda o_, d_: hit_sum(ST.closest_hit_sorted(
-                    ct8, c8, o_, d_, excl, t_init, stream=False)[0])
-            )
-        variants["sorted-stream-8"] = jax.jit(
-            lambda o_, d_: hit_sum(ST.closest_hit_sorted(
-                ct8, c8, o_, d_, excl, t_init, stream=True)[0])
-        )
-
-        ref = None
-        for name, fn in variants.items():
-            dt = timed(lambda: float(fn(oj, dj)))
-            val = float(fn(oj, dj))
-            if ref is None:
-                ref = val
-            print(f"  [{tag}] {name:>22}: {dt*1e3:8.2f} ms  "
-                  f"({N/dt/1e6:7.1f} Mray/s)  sum={val:.6g} "
-                  f"{'OK' if abs(val-ref) < abs(ref)*1e-3 + 1 else 'MISMATCH'}")
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench_traverse measures the GPU; found {dev.platform}")
+    enable_compile_cache()
+    blocks = [int(b) for b in args.blocks.split(",")]
+    rec = {"card": card_line(), "device_kind": dev.device_kind,
+           "jax": jax.__version__}
+    print(rec, flush=True)
+    rec["kernel_only"] = kernel_only(args.reps * 2, blocks)
+    for k, v in rec["kernel_only"].items():
+        if isinstance(v, dict) and "xla" in v:
+            print(k, {n: f"{r['median_s'] * 1e3:.3f} ms (compile {r['compile_s']:.1f}s)"
+                      for n, r in v.items()}, flush=True)
+        else:
+            print(k, v, flush=True)
+    rec["end_to_end"] = end_to_end(args.reps, args.quick)
+    for k, v in rec["end_to_end"].items():
+        print(k, {n: f"{r['median_s']:.3f} s [{r['min_s']:.3f}, {r['max_s']:.3f}] "
+                     f"{r['pixel_samples_per_s']:.4g} px-samples/s "
+                     f"(compile+first {r['compile_s']:.1f}s)"
+                  for n, r in v.items()}, flush=True)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "bench_traverse.json"), "w") as f:
+        json.dump(rec, f, indent=1)
 
 
 if __name__ == "__main__":

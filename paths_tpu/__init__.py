@@ -1,17 +1,18 @@
-"""paths-tpu: a TPU-native differentiable path tracer in JAX/Pallas.
+"""paths-tpu: a differentiable wavefront path tracer in JAX.
 
 A ground-up reimplementation of the capabilities of the reference renderer
-(rynorris/paths, Rust/CPU) as a TPU-first framework:
+(rynorris/paths, Rust/CPU), run on an NVIDIA GPU (tests run on the CPU):
 
-- SoA scene buffers replicated in HBM, wavefront ray batches sharded across chips
+- SoA scene buffers replicated in device memory, wavefront ray batches
+  sharded across devices
 - the whole light-transport estimate under one ``jax.jit`` (fixed shapes,
   masked lanes, ``lax.fori_loop`` bounce loop)
 - counter-based stateless RNG so every sample is a pure function of
   (pixel, sample index) -- deterministic across shardings and replayable
 - differentiable radiance: pixel gradients flow to material / light /
   sky / vertex-colour parameters
-- multi-chip rendering via ``jax.sharding.Mesh`` + ``shard_map`` with psum
-  reductions over ICI
+- multi-device rendering via ``jax.sharding.Mesh`` + ``shard_map`` with psum
+  reductions
 
 Reference layer map: see SURVEY.md (structural analysis of /root/reference).
 """

@@ -5,8 +5,8 @@ an explicit 100-slot stack (bvh.rs:78-141).  Per-lane stacks are hostile to
 a vector machine, so we build for a *stackless* threaded traversal instead:
 nodes are laid out in preorder with hit/miss links (hit -> first child /
 preorder successor; miss -> skip the subtree), which turns traversal into a
-pure gather + select loop -- exactly what the TPU VPU wants (see
-bvh/traverse.py).
+pure gather + select loop (bvh/traverse.py) or a per-lane loop in one
+kernel (ops/bvh_walk.py).
 
 Build algorithm: top-down binned-SAH (16 bins on the longest centroid axis,
 median fallback), leaves padded to exactly LEAF_SIZE primitives so the
@@ -21,8 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-# Leaf size matches the Pallas chunked layout's row width (one leaf = one
-# 8-slot triangle row, ops/pallas_traverse.PACK_LEAF).
+# Triangles per leaf: the walks test a leaf as one unrolled block of this
+# many slots (ops/bvh_walk.py packs the count into 4 bits).
 LEAF_SIZE = 8
 N_BINS = 16
 

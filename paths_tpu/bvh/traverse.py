@@ -10,8 +10,9 @@ preorder layout built by bvh/build.py:
 with closest-hit pruning folded into the slab test (tmin < t_best, the same
 early-out as bvh.rs:16).  Leaves intersect a shape-static LEAF_SIZE block of
 triangles.  The loop is a single ``lax.while_loop`` over the whole wavefront;
-a lane finishing early (cursor == -1) just idles until the wave drains --
-the SPMD cost model the whole framework is built around.
+a lane finishing early (cursor == -1) just idles until the wave drains.
+It is the CPU path for large meshes and the plain reference the GPU kernel
+(ops/bvh_walk.py) is tested against.
 """
 
 from __future__ import annotations
@@ -33,8 +34,15 @@ def closest_hit_bvh(scene, o, d, excl_kind, excl_idx, t_init):
     o, d: (N, 3); t_init: (N,) initial best distance (e.g. from the sphere
     pass, enabling cross-primitive pruning).  Returns (t, idx).
     KIND_TRI exclusion handled via excl_kind/excl_idx (see integrator.py).
+
+    The walk is a discrete selector: (t, idx) carry no gradients, so its ray
+    and table inputs are cut from autodiff (reverse mode cannot pass a
+    while_loop); shading recomputes everything differentiable at the
+    returned index.
     """
-    bvh = scene.bvh
+    bvh, o, d, t_init = lax.stop_gradient((scene.bvh, o, d, t_init))
+    tri_v0, tri_v1, tri_v2, tri_n = lax.stop_gradient(
+        (scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_n))
     N = o.shape[0]
     inv_d = 1.0 / d
     excl = excl_kind == 2  # KIND_TRI
@@ -61,11 +69,11 @@ def closest_hit_bvh(scene, o, d, excl_kind, excl_idx, t_init):
 
         for k in range(LEAF_SIZE):
             pidx = start + k
-            pidx_safe = jnp.minimum(pidx, scene.tri_v0.shape[0] - 1)
-            v0 = scene.tri_v0[pidx_safe]
-            v1 = scene.tri_v1[pidx_safe]
-            v2 = scene.tri_v2[pidx_safe]
-            n = scene.tri_n[pidx_safe]
+            pidx_safe = jnp.minimum(pidx, tri_v0.shape[0] - 1)
+            v0 = tri_v0[pidx_safe]
+            v1 = tri_v1[pidx_safe]
+            v2 = tri_v2[pidx_safe]
+            n = tri_n[pidx_safe]
             t, h, *_ = GT.intersect(o, d, v0, v1, v2, n)
             ok = (
                 do_leaf

@@ -142,10 +142,11 @@ def get_rays(
     direction_local = -(k * (p / v) + l)  # camera.rs:82-83
     norm_dir = vec.normalize(direction_local)
 
-    # Rotation applied as explicit elementwise math, NOT `@`: XLA lowers the
-    # (N,3)x(3,3) matmul onto the MXU in bfloat16 by default, quantising ray
-    # directions to ~8 mantissa bits -- several-pixel staircase artifacts on
-    # silhouettes.  The VPU form is exact f32 (and faster at this shape).
+    # Rotation applied as explicit elementwise math, NOT `@`: XLA may lower
+    # the (N,3)x(3,3) matmul onto the matrix units at reduced precision
+    # (bf16 / TF32) by default, quantising ray directions -- several-pixel
+    # staircase artifacts on silhouettes.  The elementwise form is exact
+    # f32 (and faster at this shape).
     def rotate(m, w3):
         return jnp.stack(
             [

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing -- its epoch system *discards*
 accumulated state on camera change (renderer.rs:143-150).  SURVEY.md
-section 5 names the TPU-native equivalent: serialize the accumulated
+section 5 names the equivalent here: serialize the accumulated
 (sum, count) framebuffer plus the sampler sequence counter and RNG seed so a
 long render can resume exactly where it stopped.  Because all shading
 randomness is a pure function of (seed, pixel, sample_id) (sampling/

@@ -26,11 +26,11 @@ def main(argv=None):
     ap.add_argument("--tile", type=int, default=65536, help="pixels per wave")
     ap.add_argument("--stress", type=int, default=500,
                     help="stress-scene sphere count when no scene given")
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU backend")
     ap.add_argument("--native-cpu", action="store_true",
                     help="render with the native C++ CPU tracer "
                          "(multithreaded, reference-equivalent algorithm; "
-                         "no TPU/JAX in the hot path)")
+                         "no JAX in the hot path)")
     ap.add_argument("--threads", type=int, default=4,
                     help="worker threads for --native-cpu")
     ap.add_argument("--dp", default=None, metavar="N|all",
@@ -39,7 +39,7 @@ def main(argv=None):
                          "accumulation stays device-resident per chip")
     ap.add_argument("--multihost", action="store_true",
                     help="join the jax.distributed runtime first (multi-host "
-                         "pods; pass coordinator via JAX env vars)")
+                         "clusters JAX can auto-detect)")
     ap.add_argument("--env-nee", action="store_true",
                     help="importance-sample the HDRI skybox as a light "
                          "(lower variance for sun-like environments)")
@@ -57,20 +57,27 @@ def main(argv=None):
                     help="capture a jax.profiler device trace to LOGDIR")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax
+    import jax
 
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from paths_tpu.platform import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.multihost:
         from paths_tpu.dist import init_multihost
 
         init_multihost()
 
+    # After init_multihost: querying the backend initialises it.
+    if not (args.cpu or args.native_cpu) and jax.default_backend() != "gpu":
+        raise SystemExit(f"no GPU found (JAX backend {jax.default_backend()!r}); "
+                         "pass --cpu to render on the CPU")
+
     mesh = None
     if args.dp:
-        import jax
-
         from paths_tpu.dist import make_mesh
 
         devs = jax.devices()
@@ -142,7 +149,7 @@ def main(argv=None):
         from paths_tpu import native
 
         if args.env_nee:
-            raise SystemExit("--env-nee is TPU-path only (not in --native-cpu)")
+            raise SystemExit("--env-nee is JAX-path only (not in --native-cpu)")
         # The native tracer renders from scratch in one shot: flags that
         # configure the JAX pipeline would be silently ignored -- refuse
         # rather than lie (e.g. printing 'resumed' then starting over).

@@ -3,7 +3,7 @@
 The reference's only sanitizers are runtime panics: Colour::check() on
 negative energy (colour.rs:56-60, called from trace.rs:39,80,82), negative
 pdf / invalid microfacet-sample panics (material.rs:456-496), and mesh
-metadata invariants (scene.rs:188).  Panicking inside a jitted TPU wavefront
+metadata invariants (scene.rs:188).  Panicking inside a jitted wavefront
 is not an option, so the equivalents are (SURVEY.md section 5):
 
   - ``debug_checks()``: context manager enabling jax_debug_nans +

@@ -1,17 +1,17 @@
 """Multi-chip / multi-host distribution.
 
 Reference parallelism: a thread pool pulling pixel-column requests off a
-crossbeam channel (renderer.rs:36-54).  TPU-native replacement (SURVEY.md
+crossbeam channel (renderer.rs:36-54).  Replacement here (SURVEY.md
 section 2, parallelism table):
 
-  - one mesh axis ``dp`` over all chips; pixel/ray wavefronts are sharded
+  - one mesh axis ``dp`` over all devices; pixel/ray wavefronts are sharded
     along it, scene/BVH buffers and camera are replicated (the renderer
     analogue of "replicated parameters, sharded activations");
-  - progressive accumulation is local to each chip's pixel shard -- no
-    cross-chip traffic on the forward path at all;
+  - progressive accumulation is local to each device's pixel shard -- no
+    cross-device traffic on the forward path at all;
   - the inverse-rendering training step all-reduces parameter gradients with
-    ``psum`` over ICI inside ``shard_map`` (the analogue of DP gradient
-    all-reduce, overlapped by XLA's scheduler).
+    ``psum`` inside ``shard_map``, which XLA hands to NCCL over NVLink on a
+    multi-GPU host (the analogue of DP gradient all-reduce).
 
 Multi-host: call ``init_multihost()`` (a thin wrapper over
 ``jax.distributed.initialize``) before building the mesh.
@@ -32,13 +32,12 @@ from paths_tpu.grad import get_params, l2_loss, with_params
 def init_multihost(coordinator_address=None, num_processes=None,
                    process_id=None):
     """Multi-host entry point: join the jax.distributed runtime so
-    ``jax.devices()`` spans every host's chips and the dp mesh rides
-    ICI within a slice / DCN across hosts.
+    ``jax.devices()`` spans every host's devices and the dp mesh spans
+    hosts.
 
-    With no arguments, relies on the cluster environment (TPU pods and
-    the standard JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID variables are auto-detected by JAX).  Safe to call
-    once per process, before any device query."""
+    With no arguments, relies on whatever cluster environment JAX can
+    auto-detect; elsewhere pass the coordinator address, process count and
+    process id.  Safe to call once per process, before any device query."""
     kw = {}
     if coordinator_address is not None:
         kw["coordinator_address"] = coordinator_address
@@ -73,12 +72,12 @@ def sharded_render_wave(static, mesh: Mesh, axis: str = "dp"):
 
 def sharded_render_samples(static, mesh: Mesh, n_samples: int, axis: str = "dp"):
     """The production forward (render_samples' regenerating wavefront) as an
-    explicit per-device SPMD program: each chip runs the full local pipeline
-    -- coherence sort, Pallas traversal kernels, while-loop regeneration --
-    over its own pixel shard, with zero cross-chip traffic on the forward
-    path.  ``shard_map`` (not jit+in_shardings) so the Pallas custom calls
-    never meet the SPMD partitioner: they simply execute per device, exactly
-    as single-chip.  Lane count must divide by the mesh size.
+    explicit per-device SPMD program: each device runs the full local
+    pipeline -- traversal kernels, while-loop regeneration -- over its own
+    pixel shard, with zero cross-device traffic on the forward path.
+    ``shard_map`` (not jit+in_shardings) so the kernel custom calls never
+    meet the SPMD partitioner: they simply execute per device, exactly as
+    on one device.  Lane count must divide by the mesh size.
 
     Returns a jitted fn (scene, cam, px, py, pid, sample_start, seed) ->
     (N, 3) lane-sharded radiance sums."""
@@ -100,8 +99,8 @@ def sharded_render_samples(static, mesh: Mesh, n_samples: int, axis: str = "dp")
 
 def sharded_train_step(static, mesh: Mesh, axis: str = "dp", lr: float = 0.05):
     """One inverse-rendering SGD step as an explicit-SPMD program:
-    per-chip local gradients over its pixel shard, psum over ICI, replicated
-    parameter update.  Returns a jitted fn
+    per-device local gradients over its pixel shard, psum across devices,
+    replicated parameter update.  Returns a jitted fn
     (params, scene, cam, px, py, pid, sid, seed, target) -> (loss, params).
     """
 

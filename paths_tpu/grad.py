@@ -1,7 +1,7 @@
 """Differentiable rendering: pixel gradients to scene parameters.
 
 This is the capability the reference does not have (SURVEY.md: autodiff is a
-new capability per BASELINE.json).  The full radiance estimate in
+new capability).  The full radiance estimate in
 paths_tpu.integrator is a pure function of the SceneArrays pytree, so
 gradients w.r.t. the *continuous* scene parameters -- material albedos /
 reflectance / metalness / roughness / emission, light colour & intensity,
@@ -20,18 +20,16 @@ Estimator notes:
     the explicit intersection formulas, but visibility discontinuities are
     NOT handled (no edge sampling) -- documented limitation.
 
-Backend cut for geometry derivatives: the Pallas traversal launchers
-``stop_gradient`` their ray and table inputs (ops/pallas_traverse.py,
-ops/sorted_traverse.py _launch_sorted) -- traversal is a discrete selector
-whose outputs (t, prim id, ent) carry no gradients -- so on the TPU /
-forced-Pallas path geometry derivatives (sphere centers/radii, vertices
-through hit-t) vanish, while the XLA-fallback intersectors propagate them.
-The supported PARAM_FIELDS below are unaffected: they enter only through
-shading, which both backends recompute differentiably from SceneArrays at
-the returned hit (parity-tested in tests/test_grad.py
-test_forced_pallas_grads_match_xla).  Differentiating geometry therefore
-requires the XLA fallback (or a future reparameterised VJP at the returned
-index, SURVEY.md section 7).
+Cut for geometry derivatives: the BVH walks (bvh/traverse.py and the GPU
+kernel ops/bvh_walk.py) ``stop_gradient`` their ray and table inputs --
+traversal is a discrete selector whose outputs (t, prim id) carry no
+gradients -- so on a walked mesh geometry derivatives through hit-t
+vanish, while the brute-force intersectors propagate them.  The supported
+PARAM_FIELDS below are unaffected: they enter only through shading, which
+is recomputed differentiably from SceneArrays at the returned hit
+(tests/test_grad.py test_grads_through_bvh_walk_match_scan).
+Differentiating geometry through a walked mesh needs a reparameterised VJP
+at the returned index (SURVEY.md section 7).
 """
 
 from __future__ import annotations

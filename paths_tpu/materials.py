@@ -3,7 +3,7 @@
 Reference: src/material.rs.  The reference dispatches through a Rust enum per
 ray; here every lane of the wavefront carries a material id and per-lane
 parameters gathered from the scene's SoA entity table, and all lobes are
-evaluated branchlessly then selected -- the TPU-native replacement for enum
+evaluated branchlessly then selected -- the wavefront replacement for enum
 dispatch.
 
 Material ids:

@@ -1,7 +1,7 @@
 """Double-single (two-float) arithmetic.
 
-The reference renderer does all geometry in f64 (vector.rs:4-8).  TPU vector
-units are f32-native and f64 is emulated/slow, but the bundled scenes model
+The reference renderer does all geometry in f64 (vector.rs:4-8).  GPU f64
+throughput is a small fraction of f32, but the bundled scenes model
 ground planes as spheres of radius 1e6 (scenes/spheres_on_plane.yml), where a
 plain f32 quadratic solve loses ~5 decimal digits to cancellation and produces
 visible banding/acne.  Instead of paying for f64 everywhere we carry the few

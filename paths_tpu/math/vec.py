@@ -1,6 +1,6 @@
 """Vector math over (..., 3) arrays.
 
-TPU-native analogue of the reference's scalar ``Vector3``
+The analogue of the reference's scalar ``Vector3``
 (reference: src/vector.rs:4-81).  Everything here is shape-polymorphic and
 vectorises over arbitrary leading batch dimensions so a "vector" is a lane of
 a wavefront, not a struct.

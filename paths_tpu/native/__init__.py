@@ -1,6 +1,6 @@
 """Native (C++) runtime components, bound via ctypes.
 
-The TPU compute path is JAX/XLA/Pallas; host-side, latency-critical runtime
+The device compute path is JAX/XLA/Pallas; host-side, latency-critical runtime
 work -- BVH construction today, mesh parsing tomorrow -- runs as compiled
 C++ (the analogue of the reference's compiled-Rust builder,
 /root/reference/src/bvh.rs:143-384).  Every native entry point has a

@@ -1,6 +1,6 @@
 // Native BVH builder: top-down binned-SAH over per-primitive AABBs,
-// flattened to the skip-link (threaded) layout consumed by the TPU traversal
-// kernels (paths_tpu/bvh/traverse.py).
+// flattened to the skip-link (threaded) layout consumed by the traversal
+// walks (paths_tpu/bvh/traverse.py, paths_tpu/ops/bvh_walk.py).
 //
 // This is the framework's native-code analogue of the reference renderer's
 // Rust AAC builder (/root/reference/src/bvh.rs:143-384): construction is a

@@ -1,5 +1,5 @@
 // Multithreaded CPU path tracer: the measured performance anchor and the
-// cross-implementation oracle for the JAX/TPU renderer.
+// cross-implementation oracle for the JAX renderer.
 //
 // The Rust reference (rynorris/paths) cannot be built in this image (no
 // cargo, no network), but its only published performance surface is its

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the renderer's hot ops."""
+"""GPU kernels for the renderer's hot ops (Pallas, Triton route)."""

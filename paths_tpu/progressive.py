@@ -1,6 +1,6 @@
 """Progressive rendering runtime: epochs, preview pass, fly-cam, FPS governor.
 
-TPU-native replacement for the reference's execution runtime
+The replacement for the reference's execution runtime
 (src/renderer.rs, src/controller.rs, src/timing.rs, src/pixels.rs):
 
   reference                         | here
@@ -114,8 +114,7 @@ class ProgressiveRenderer:
         result is fetched, so the host-side fetch + accumulate + draw of
         frame n overlaps the device computing frame n+1 (JAX dispatch is
         async; np.asarray blocks only on the already-running previous
-        wave).  The measured single-chip viewer was bounded by exactly
-        this serialization (BASELINE.md: 14 fps host pump).  A camera
+        wave), so the device never waits on the host's draw.  A camera
         change mid-flight bumps the epoch and the stale wave is dropped
         on arrival -- the same staleness rule as the reference's workers
         (worker.rs:58-66), narrowed to the one in-flight wave.

@@ -9,7 +9,7 @@ the full Pixar hash), because image parity with the reference is a goal.
 
 Everything is a pure function of (sample index s, pattern dims m x n,
 pattern seed p): stateless, vectorised over s and p, and therefore identical
-under any device sharding -- this is the TPU-native replacement for the
+under any device sharding -- this is the wavefront replacement for the
 reference's per-worker stateful iterators (sampling.rs:238-265).
 """
 

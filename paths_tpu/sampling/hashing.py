@@ -4,7 +4,7 @@ The reference draws all shading randomness (light pick, BSDF lobe choice,
 hemisphere samples, Russian roulette) from ``rand::thread_rng`` (trace.rs:106,
 material.rs:310, geom.rs:11-13): fast but stateful and unreproducible.
 
-TPU-native replacement: every uniform is a pure hash of
+Replacement here: every uniform is a pure hash of
 (seed, pixel_id, sample_id, bounce, dimension).  This makes renders
 deterministic, independent of device layout or wavefront batching, and --
 crucially for the differentiability gates -- lets finite-difference gradient

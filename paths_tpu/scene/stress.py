@@ -1,10 +1,8 @@
 """Procedural stress scene: N random spheres (reference: src/stress.rs).
 
 Deterministic (seeded) unlike the reference's thread_rng, so benchmarks are
-reproducible.  Also provides a mixed sphere+mesh+area-light scene used by
-the forced-Pallas parity test and the multichip dryrun, so the production
-kernel paths (sorted triangle traversal, chunked sphere kernel, one-hot
-tables, Pallas occlusion) are exercised off-TPU.
+reproducible.  Also provides a small mixed sphere+mesh+area-light scene
+used by the golden images and the traversal tests.
 """
 
 from __future__ import annotations
@@ -51,10 +49,10 @@ def generate_stress_scene(num_spheres: int = 500, seed: int = 0) -> D.SceneDescr
 
 def generate_mixed_scene(asset_dir: str, n_spheres: int = 3, grid_n: int = 9,
                          seed: int = 7) -> D.SceneDescription:
-    """Small but kernel-complete scene: a bumpy grid mesh (> 64 tris so the
-    Pallas triangle path engages), spheres over every material class, and a
-    sphere area light.  ``n_spheres > 32`` additionally engages the chunked
-    Pallas sphere kernel.  Writes ``grid.obj`` into asset_dir."""
+    """Small but complete scene: a bumpy grid mesh (> 64 tris, so it is
+    walked rather than unrolled wherever a walk is chosen), spheres over
+    every material class, and a sphere area light.  ``n_spheres > 64`` puts
+    the spheres on the chunked scan.  Writes ``grid.obj`` into asset_dir."""
     n = grid_n
     xs = np.linspace(-2, 2, n)
     zs = np.linspace(-2, 2, n)

@@ -1,8 +1,9 @@
 """Scene representation: flattened SoA buffers.
 
-TPU-native analogue of the reference's Scene (src/scene.rs:134-170): at build
-time every object / mesh / area-light is flattened into world-space primitive
-soup -- here as structure-of-arrays buffers that live replicated in HBM:
+The analogue of the reference's Scene (src/scene.rs:134-170): at build time
+every object / mesh / area-light is flattened into world-space primitive
+soup -- here as structure-of-arrays buffers that live replicated in device
+memory:
 
   - spheres and triangles in separate SoA arrays (no enum dispatch per prim),
   - one unified entity table (objects then lights) holding material SoA and
@@ -102,13 +103,9 @@ class SceneArrays(NamedTuple):
 
     sky: Sky
     bvh: Optional[BvhArrays]
-    # Pallas chunked-triangle layout (ops/pallas_traverse.ChunkedTris):
-    # BVH-ordered leaf rows + chunk AABBs, resident in VMEM during
-    # traversal.  None when n_tris is small or the layout exceeds VMEM.
-    ptris: object = None
-    # Pallas chunked-sphere layout (morton-sorted small spheres; big/far
-    # spheres stay on the double-single path, see scene/build.py).
-    psph: object = None
+    # Row-packed BVH and triangle tables for the GPU walk kernel
+    # (ops/bvh_walk.WalkTables); None unless SceneStatic.bvh_kernel.
+    walk: object = None
 
 
 @dataclass(frozen=True)
@@ -120,47 +117,12 @@ class SceneStatic:
     n_lights: int
     n_entities: int
     sky_type: int
+    # Triangles are walked through scene.bvh (bvh/traverse.py) instead of
+    # the brute-force scan; with bvh_kernel, through the GPU kernel's
+    # tables in scene.walk (ops/bvh_walk.py).  Chosen by scene/build.py.
     use_bvh: bool = False
+    bvh_kernel: bool = False
     has_fresnel: bool = False
-    # Pallas sorted-traversal triangle intersector (ops/sorted_traverse.py):
-    # chunk count is compile-time; 0 disables the kernel (CPU runs / tiny
-    # meshes).  pallas_tri_stream keeps the triangle table in HBM and DMAs
-    # chunks on demand (meshes past the VMEM-resident budget);
-    # pallas_tri_rows is the chunk granularity (rows of 8 triangles).
-    pallas_tri_chunks: int = 0
-    pallas_tri_stream: bool = False
-    pallas_tri_rows: int = 8
-    # Streamed kernels read the field-replicated triangle table (each
-    # constant pre-broadcast across lanes -- scalar-unit-free row test;
-    # ops/sorted_traverse.replicate_tris).  Only meaningful with
-    # pallas_tri_stream; the fat table only pays on big meshes.
-    pallas_tri_rep: bool = False
-    # Replicated table for the OCCLUSION (any-hit) walk too -- measured
-    # slower at dragon scale (extra DMA exposed on shorter walks), so off
-    # by default; PATHS_TPU_OCCL_REP=1 at scene build re-tests.
-    pallas_occl_rep: bool = False
-    # Ray-block sublane count for the sorted kernels.  With sub-block
-    # row-test gating (ops/sorted_traverse._half_cond_enabled) admission
-    # stays at 1024-lane granularity regardless of width, so wide blocks
-    # purely amortise per-visit fixed costs: 64 for streamed / big
-    # resident meshes, 16 for small resident ones (measured round 5).
-    pallas_block_rows: int = 8
-    # Pallas culled-chunk sphere intersector; sphere array layout is
-    # [0, n_sph_big) double-single-path spheres, then kernel spheres.
-    pallas_sph_chunks: int = 0
-    # Dispatch small sphere tables to the flat unrolled kernel instead of
-    # the sorted walk (opt-in baseline; PATHS_TPU_SPH_FLAT=1 resolved at
-    # scene build, NOT at trace time, so it participates in jit caching).
-    pallas_sph_flat: bool = False
-    # Ray-block width for the sorted SPHERE kernels: 64 for real sphere
-    # sets (stress-500: 4.66 -> 4.92x anchor with sub-block gating), 8
-    # when the table is a couple of chunks (padding waste dominates).
-    # PATHS_TPU_SPH_BLOCK_ROWS overrides at scene build for sweeps.
-    pallas_sph_block_rows: int = 8
-    n_sph_big: int = 0
-    # Select shading rows from small tables via one-hot MXU matmul instead
-    # of HBM gathers (a TPU-only win; see integrator._take_rows).
-    onehot_tables: bool = False
     # Bounce cap (trace.rs:14 caps `loops > 10` -> 11 iterations).  A
     # compile-time knob: lowering it shrinks the unrolled-scan program for
     # fast-compile paths (previews, dryruns) at the cost of bias.
@@ -169,24 +131,6 @@ class SceneStatic:
     # capability extension over the reference's skybox-on-miss).  Off by
     # default to match reference semantics exactly.
     env_nee: bool = False
-    # Run the Pallas kernels in interpret mode (CPU tests / multichip
-    # dryruns exercise the production kernel path without a TPU; set via
-    # PATHS_TPU_FORCE_PALLAS=1, see scene/build.py).
-    pallas_interpret: bool = False
-    # The caller keeps the whole wave coherence-sorted (render_samples'
-    # per-bounce wave-state sort), so BOTH the closest-hit and occlusion
-    # kernels skip their internal lane sort + unsort: shadow rays ride the
-    # bounce-ray sort (origins are the sorted wave's hit points; for any
-    # single light their directions are sign-pure except in blocks that
-    # straddle the light's coordinate planes).
-    wave_presorted: bool = False
-    # Occlusion (shadow) waves run their OWN per-call lane sort even when
-    # the wave is presorted: the shadow ray's (direction octant | origin
-    # morton) key IS the light-relative key -- its direction points at the
-    # sampled light, not along the bounce ray the wave sort keyed on.
-    # Only meaningful with wave_presorted (lane_sort is already on
-    # otherwise).  Set by scene/build.py; PATHS_TPU_OCCL_SORT overrides.
-    occl_sort: bool = False
 
     @property
     def has_spheres(self) -> bool:

@@ -1,7 +1,7 @@
 """Interactive terminal viewer -- the app shell.
 
 The reference opens an SDL2 window with a 60Hz fly-cam loop
-(src/main.rs:39-186).  Headless TPU hosts have no SDL; the equivalent here
+(src/main.rs:39-186).  Headless accelerator hosts have no SDL; the equivalent here
 renders the progressive estimate to the terminal with 24-bit ANSI half-block
 cells and reads WASD keys raw from stdin:
 
@@ -32,10 +32,9 @@ MOVEMENT_SPEED = 0.4
 ROTATION_SPEED = 0.05
 
 
-# Per-cell escape fragments, precomputed once: the naive per-cell f-string
-# build cost 37 ms/frame at 160x100 -- HALF the measured 14 fps frame
-# budget once the render pump was pipelined.  Byte-fragment lookup + join
-# runs the same frame in ~5 ms.
+# Per-cell escape fragments, precomputed once: building an f-string per
+# cell is the slow part of drawing a frame; byte-fragment lookup + join is
+# several times faster.
 _FG = [f"\x1b[38;2;{v};".encode() for v in range(256)]
 _BG = [f"m\x1b[48;2;{v};".encode() for v in range(256)]
 _NUM = [f"{v};".encode() for v in range(256)]
@@ -64,12 +63,14 @@ def _frame_to_ansi(rgb_bytes: np.ndarray) -> str:
 
 def run_viewer(scene_path: str | None, width: int, height: int, stress: int = 100,
                max_seconds: float | None = None, interactive: bool = True):
+    from paths_tpu.platform import enable_compile_cache
     from paths_tpu.scene.build import build_scene
     from paths_tpu.scene.yaml_loader import load_scene_description
     from paths_tpu.scene.stress import generate_stress_scene
     from paths_tpu import camera as C
     from paths_tpu.progressive import ProgressiveRenderer, Controller, Governer
 
+    enable_compile_cache()
     if scene_path:
         sd = load_scene_description(scene_path)
     else:
@@ -166,7 +167,15 @@ def main(argv=None):
     ap.add_argument("--stress", type=int, default=100)
     ap.add_argument("--seconds", type=float, default=None,
                     help="exit after N seconds (for headless smoke tests)")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU backend")
     args = ap.parse_args(argv)
+    import jax
+
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+    elif jax.default_backend() != "gpu":
+        raise SystemExit(f"no GPU found (JAX backend {jax.default_backend()!r}); "
+                         "pass --cpu to run on the CPU")
     w, h = (int(v) for v in args.size.lower().split("x"))
     run_viewer(args.scene, w, h, stress=args.stress, max_seconds=args.seconds)
 

@@ -187,6 +187,26 @@ def make_doom_standin(n=220, seed=3):
     return V.astype(np.float32), F, c.reshape(-1, 3)
 
 
+def make_teapot_standin(n_u=80, n_v=41):
+    """Teapot stand-in: a closed-ish bulging lathe body, ~6.4k triangles.
+
+    The reference's teapot (environment.yml, teapot.yml) is an unbundled
+    ~6.3k-face OBJ; this surface of revolution has the same face count
+    class, smooth curvature and size (about 3 units across)."""
+    t = np.linspace(0.03, 0.97, n_v)
+    y = 1.6 * t
+    r = 1.5 * np.sin(np.pi * t) ** 0.8 * (1.0 + 0.08 * np.cos(3 * np.pi * t))
+    a = np.linspace(0, 2 * np.pi, n_u, endpoint=False)
+    P = np.stack([
+        r[None, :] * np.cos(a)[:, None],
+        np.broadcast_to(y[None, :], (n_u, n_v)),
+        r[None, :] * np.sin(a)[:, None],
+    ], -1)
+    V = P.reshape(-1, 3)
+    F = _grid_faces(n_u, n_v, wrap_u=True)
+    return V.astype(np.float32), F
+
+
 def main():
     import sys
 
@@ -202,6 +222,11 @@ def main():
 
     V, F = make_dragon_standin()
     out = os.path.join(assets, "dragon_standin.ply")
+    write_ply_binary(out, V, F)
+    print(f"wrote {out}: {len(V)} verts, {len(F)} tris")
+
+    V, F = make_teapot_standin()
+    out = os.path.join(assets, "teapot_standin.ply")
     write_ply_binary(out, V, F)
     print(f"wrote {out}: {len(V)} verts, {len(F)} tris")
 

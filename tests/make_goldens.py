@@ -3,7 +3,7 @@
 Run from the repo root on the CPU backend (the platform the test suite
 uses):
 
-    python tests/make_goldens.py
+    python tests/make_goldens.py [name ...]
 
 Goldens are small (72x48) low-spp renders with a reduced bounce budget --
 enough to cover camera, traversal, materials, NEE, sky and RR end-to-end
@@ -20,10 +20,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import dataclasses
 
 import numpy as np
@@ -31,10 +27,7 @@ import numpy as np
 GOLDENS = {
     # name -> (scene path, spp, max_bounces, opts)
     # opts: env_nee=True  -> enable HDRI importance sampling
-    #       force_pallas=True -> render through the production Pallas
-    #           kernels in interpret mode (the code path that makes TPU
-    #           images; VERDICT r2 item 5)
-    #       mixed=True -> procedural kernel-complete mixed scene
+    #       mixed=True -> procedural mixed sphere+mesh+area-light scene
     "spheres_on_plane": ("/root/reference/scenes/spheres_on_plane.yml", 4, 5, {}),
     "bokeh_demo": ("/root/reference/scenes/bokeh_demo.yml", 4, 5, {}),
     "teapot": ("/root/reference/scenes/teapot.yml", 2, 4, {}),
@@ -44,21 +37,21 @@ GOLDENS = {
     # NEE/eval-only reference materials previously appeared in no golden.
     "ct_demo": ("scenes/ct_demo.yml", 2, 4, {}),
     # environment.yml composition: triangles + HDRI, with and without env
-    # importance sampling (VERDICT r2 item 6).
+    # importance sampling.
     "env_mesh_demo": ("scenes/env_mesh_demo.yml", 2, 4, {}),
     "env_mesh_demo_nee": ("scenes/env_mesh_demo.yml", 2, 4, {"env_nee": True}),
-    # Forced-Pallas golden: pins the kernel-path image (sorted traversal,
-    # chunked spheres, one-hot tables) that otherwise ships untested.
-    "mixed_pallas": (None, 2, 3, {"mixed": True, "force_pallas": True}),
+    # Spheres over every material class, a 128-triangle mesh and a sphere
+    # light in one image.
+    "mixed": (None, 2, 3, {"mixed": True}),
     # NB no stress-scene golden: the unrolled-sphere integrator takes XLA
     # ~15 min to compile on CPU at 64 spheres; the stress path is covered by
-    # test_render_equiv / test_dist / the TPU benchmarks instead.
+    # test_render_equiv / test_dist / chip_smoke.py instead.
 }
 SIZE = (72, 48)
 SEED = 0
 
 
-def render_golden(name):
+def render_golden(name, seed=SEED):
     from paths_tpu import camera as C
     from paths_tpu.render import render_image
     from paths_tpu.scene.build import build_scene
@@ -70,38 +63,29 @@ def render_golden(name):
     if opts.get("mixed"):
         asset_dir = os.path.join(here, "goldens", "assets")
         os.makedirs(asset_dir, exist_ok=True)
-        sd = generate_mixed_scene(asset_dir, n_spheres=40)
+        sd = generate_mixed_scene(asset_dir)
     else:
         if not os.path.isabs(path):
             path = os.path.join(os.path.dirname(here), path)
         sd = load_scene_description(path)
 
-    old = os.environ.get("PATHS_TPU_FORCE_PALLAS")
-    if opts.get("force_pallas"):
-        os.environ["PATHS_TPU_FORCE_PALLAS"] = "1"
-    try:
-        static, scene, cam = build_scene(sd)
-    finally:
-        if opts.get("force_pallas"):
-            if old is None:
-                os.environ.pop("PATHS_TPU_FORCE_PALLAS", None)
-            else:
-                os.environ["PATHS_TPU_FORCE_PALLAS"] = old
-    if opts.get("force_pallas"):
-        assert static.pallas_tri_chunks > 0 and static.pallas_interpret
+    static, scene, cam = build_scene(sd)
     static = dataclasses.replace(
         static, max_bounces=max_bounces, env_nee=bool(opts.get("env_nee"))
     )
     W, H = SIZE
     cam = C.resize(cam, W, H)
-    img = render_image(static, scene, cam, W, H, spp=spp, seed=SEED)
+    img = render_image(static, scene, cam, W, H, spp=spp, seed=seed)
     return np.asarray(img, np.float32)
 
 
 def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
     os.makedirs(out_dir, exist_ok=True)
-    for name in GOLDENS:
+    for name in sys.argv[1:] or GOLDENS:
         img = render_golden(name)
         assert np.isfinite(img).all(), name
         np.savez_compressed(os.path.join(out_dir, f"{name}.npz"), img=img)

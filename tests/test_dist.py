@@ -1,6 +1,6 @@
 """Multi-chip sharding tests on the 8-virtual-device CPU mesh (conftest sets
 xla 8 cpu devices; SURVEY.md section 4's standard trick), covering the
-TPU-native replacement for the reference's worker-pool parallelism
+replacement for the reference's worker-pool parallelism
 (renderer.rs:36-54): dp-sharded pixel wavefronts, replicated scene, psum'd
 gradients.
 """
@@ -135,87 +135,6 @@ def test_render_image_mesh_matches_single_device(tiny):
     img_sharded = render_image(static, scene, cam, W, H, spp=2, seed=3,
                                mesh=mesh)
     np.testing.assert_allclose(img_sharded, img_local, rtol=1e-5, atol=1e-7)
-
-
-def test_sharded_forced_pallas_matches_local(tmp_path):
-    """The production Pallas kernels (sorted triangle traversal, chunked
-    sphere kernel, one-hot tables) under shard_map on the 8-device mesh:
-    sharded == local, kernels engaged (VERDICT r1 item 5)."""
-    import os
-
-    from paths_tpu.dist import sharded_render_samples
-    from paths_tpu.render import render_samples
-    from paths_tpu.scene.stress import generate_mixed_scene
-    from paths_tpu.scene.build import build_scene
-
-    old = os.environ.get("PATHS_TPU_FORCE_PALLAS")
-    os.environ["PATHS_TPU_FORCE_PALLAS"] = "1"
-    try:
-        sd = generate_mixed_scene(str(tmp_path), n_spheres=40)
-        static, scene, cam = build_scene(sd)
-    finally:
-        if old is None:
-            os.environ.pop("PATHS_TPU_FORCE_PALLAS", None)
-        else:
-            os.environ["PATHS_TPU_FORCE_PALLAS"] = old
-    assert static.pallas_tri_chunks > 0
-    assert static.pallas_sph_chunks > 0
-    assert static.pallas_interpret
-    static = dataclasses.replace(static, max_bounces=2)
-
-    n = 128  # 16 lanes/shard; interpret-mode cost scales with lanes
-    pix = np.arange(n, dtype=np.uint32)
-    px = jnp.asarray((pix % 16).astype(np.int32))
-    py = jnp.asarray((pix // 16).astype(np.int32))
-    pid = jnp.asarray(pix)
-
-    mesh = make_mesh()
-    fwd = sharded_render_samples(static, mesh, n_samples=2)
-    col_sharded = fwd(scene, cam, px, py, pid, jnp.uint32(0), 0)
-    col_local = render_samples(
-        static, scene, cam, px, py, pid, jnp.uint32(0), 2, 0
-    )
-    assert np.isfinite(np.asarray(col_sharded)).all()
-    np.testing.assert_allclose(
-        np.asarray(col_sharded), np.asarray(col_local), rtol=1e-4, atol=1e-6
-    )
-
-
-def test_sharded_wave_sort_matches_local(tmp_path, monkeypatch):
-    """The render_samples wave-state sort under shard_map (per-shard
-    permutation + final unscatter) == local.  The production threshold
-    (8192 lanes/shard) is lowered via PATHS_TPU_WAVE_SORT_MIN_N so the
-    sorted path compiles and runs at test sizes."""
-    import os
-
-    from paths_tpu.dist import sharded_render_samples
-    from paths_tpu.render import render_samples
-    from paths_tpu.scene.stress import generate_mixed_scene
-    from paths_tpu.scene.build import build_scene
-
-    monkeypatch.setenv("PATHS_TPU_FORCE_PALLAS", "1")
-    sd = generate_mixed_scene(str(tmp_path), n_spheres=40)
-    static, scene, cam = build_scene(sd)
-    assert static.pallas_tri_chunks > 0
-    static = dataclasses.replace(static, max_bounces=2)
-    monkeypatch.setenv("PATHS_TPU_WAVE_SORT_MIN_N", "16")
-
-    n = 128  # 16 lanes/shard >= the lowered sort threshold
-    pix = np.arange(n, dtype=np.uint32)
-    px = jnp.asarray((pix % 16).astype(np.int32))
-    py = jnp.asarray((pix // 16).astype(np.int32))
-    pid = jnp.asarray(pix)
-
-    mesh = make_mesh()
-    fwd = sharded_render_samples(static, mesh, n_samples=2)
-    col_sharded = fwd(scene, cam, px, py, pid, jnp.uint32(0), 0)
-    col_local = render_samples(
-        static, scene, cam, px, py, pid, jnp.uint32(0), 2, 0
-    )
-    assert np.isfinite(np.asarray(col_sharded)).all()
-    np.testing.assert_allclose(
-        np.asarray(col_sharded), np.asarray(col_local), rtol=1e-4, atol=1e-6
-    )
 
 
 def test_full_depth_sharded_compile(tiny):

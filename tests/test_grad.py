@@ -1,4 +1,4 @@
-"""Differentiability gates (BASELINE.json north star): autodiff pixel
+"""Differentiability gates: autodiff pixel
 gradients must match central finite differences computed with common random
 numbers -- same seed means FD and autodiff follow identical paths, so the
 comparison is tight, not statistical."""
@@ -146,61 +146,44 @@ def test_inverse_rendering_recovers_albedo(lit_sphere):
     )
 
 
-def test_forced_pallas_grads_match_xla(tmp_path):
-    """Backend gradient parity (VERDICT r4 item 4): loss_and_grad through
-    the forced-Pallas integrator (interpret mode, mixed sphere+mesh scene)
-    must match the XLA-fallback grads for EVERY supported PARAM_FIELD.
+def test_grads_through_bvh_walk_match_scan(tmp_path):
+    """loss_and_grad through a mesh that takes the BVH walk (bvh_threshold
+    lowered so the walk engages) must match the brute-force scan build for
+    EVERY supported PARAM_FIELD, with glossy bounces whose directions depend
+    on differentiable parameters.
 
-    The Pallas launchers stop_gradient traversal inputs, but PARAM_FIELDS
-    enter only through shading, which both backends recompute from
-    SceneArrays at the returned hit -- so parameter grads must agree up to
-    f32 order-of-ops at grazing hits (see grad.py's backend-cut note;
-    geometry derivatives are the XLA-only exception, by design)."""
-    import os
-
+    The walk stop_gradients its inputs (reverse mode cannot pass its
+    while_loop), but PARAM_FIELDS enter only through shading, recomputed at
+    the returned hit -- so parameter grads agree up to f32 order of ops."""
     from paths_tpu.scene.stress import generate_mixed_scene
 
     sd = generate_mixed_scene(str(tmp_path))
-    builds = {}
-    for force in (True, False):
-        os.environ["PATHS_TPU_FORCE_PALLAS"] = "1" if force else "0"
-        try:
-            st, sc, cm = build_scene(sd)
-            builds[force] = (dataclasses.replace(st, max_bounces=3), sc, cm)
-        finally:
-            os.environ.pop("PATHS_TPU_FORCE_PALLAS", None)
-    static_p, scene_p, cam = builds[True]
-    static_f, scene_f, _ = builds[False]
-    assert static_p.pallas_tri_chunks > 0 and static_p.pallas_interpret
-    assert static_f.pallas_tri_chunks == 0
+    st_w, sc_w, cam = build_scene(sd, bvh_threshold=64)
+    st_s, sc_s, _ = build_scene(sd)
+    assert st_w.use_bvh and not st_w.bvh_kernel and not st_s.use_bvh
+    st_w = dataclasses.replace(st_w, max_bounces=3)
+    st_s = dataclasses.replace(st_s, max_bounces=3)
 
     cam, px, py, pid, sid = _wave_args(cam)
     target = jnp.zeros((px.shape[0], 3))
-    loss_p, g_p = G.loss_and_grad(
-        static_p, scene_p, cam, px, py, pid, sid, 0, target
-    )
-    loss_f, g_f = G.loss_and_grad(
-        static_f, scene_f, cam, px, py, pid, sid, 0, target
-    )
-    np.testing.assert_allclose(float(loss_p), float(loss_f), rtol=1e-4)
+    loss_w, g_w = jax.jit(partial(G.loss_and_grad, st_w))(
+        sc_w, cam, px, py, pid, sid, 0, target)
+    loss_s, g_s = jax.jit(partial(G.loss_and_grad, st_s))(
+        sc_s, cam, px, py, pid, sid, 0, target)
+    np.testing.assert_allclose(float(loss_w), float(loss_s), rtol=1e-4)
 
-    # NB the Pallas build morton-sorts kernel spheres / BVH-orders
-    # triangles, so per-PRIMITIVE arrays are permuted between builds; all
-    # PARAM_FIELDS are per-ENTITY or per-light except tri_vc*, whose order
-    # follows the triangle permutation.  Compare entity/light fields
-    # directly and tri_vc* as permutation-invariant sums.
-    flat_p = g_p
-    flat_f = g_f
+    # The walked build BVH-orders its triangles, so tri_vc* (per-triangle)
+    # compare as permutation-invariant sums; every other field is per
+    # entity or per light.
     for field in G.PARAM_FIELDS:
-        a, b = np.asarray(flat_p[field]), np.asarray(flat_f[field])
+        a, b = np.asarray(g_w[field]), np.asarray(g_s[field])
+        assert np.isfinite(a).all(), field
         if field.startswith("tri_vc"):
             a, b = a.sum(axis=0), b.sum(axis=0)
-        np.testing.assert_allclose(
-            a, b, rtol=2e-3, atol=1e-5,
-            err_msg=f"grad mismatch for {field}",
-        )
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=1e-5,
+                                   err_msg=f"grad mismatch for {field}")
     for field in G.SKY_PARAM_FIELDS:
         np.testing.assert_allclose(
-            np.asarray(flat_p["sky"][field]), np.asarray(flat_f["sky"][field]),
+            np.asarray(g_w["sky"][field]), np.asarray(g_s["sky"][field]),
             rtol=2e-3, atol=1e-5, err_msg=f"sky grad mismatch for {field}",
         )
